@@ -123,15 +123,19 @@ def test_stale_headline_survives_total_failure(monkeypatch, capsys,
 
 
 def test_budget_skips_every_config(monkeypatch, capsys, tmp_path):
-    """The predictive skip applies to ALL configs (round 4 exempted the
-    first, which then ate the whole driver window)."""
+    """Past the deadline no config starts, the first one included: each is
+    skipped and recorded, and with nothing run the bench reports rc=1."""
     bench = _load_bench()
     calls = _setup(monkeypatch, bench, dict(ALL), tmp_path, deadline=-1.0)
     rc = bench.main()
     cap = capsys.readouterr()
     assert calls == []
     assert rc == 1  # nothing ran and no stale headline existed
-    assert "skipping" in cap.err
+    assert cap.err.count("skipping") == len(ALL)
+    detail = json.load(open(tmp_path / "BENCH_DETAIL.json"))
+    skipped = [f["config"] for d in detail if "failures" in d
+               for f in d["failures"] if f["error"] == "skipped: budget"]
+    assert sorted(skipped) == sorted(ALL)
 
 
 def test_detail_lines_are_not_parseable_json(monkeypatch, capsys, tmp_path):

@@ -82,3 +82,82 @@ def test_golden_jax_backend(work, ref_walt, ref_index, se_fastq, pe_fastq):
                        backend=be)
     for suf in ("", ".mapstats"):
         assert filecmp.cmp(ref_out + suf, my_out + suf, shallow=False), suf
+
+
+def _se_device_vs_se_exact(my_index, se_fastq):
+    """Per-read (pos, times, strand, mm) of the SE device program equal
+    native.se_exact on every mappable read the device resolved (the
+    drivers never map reads shorter than the seed pattern)."""
+    from walt_tpu import native
+    from walt_tpu.core.jax_backend import JaxBackend
+    from walt_tpu.host.fastq import FgetsLines, load_batch
+
+    pattern = get_pattern("3")
+    gm, _ = io_walt.read_head(my_index)
+    tables = [io_walt.read_table_cached(my_index + s, gm)
+              for s in ("_CT00", "_CT01")]
+    codes, lens = load_batch(FgetsLines(se_fastq), 10**6).packed()
+    if native.get_lib() is None:
+        pytest.skip(f"native library unavailable: {native.build_error}")
+    pos, times, minus, mm, fb = JaxBackend().map_single_end(
+        codes, lens, tables, 5000, 6, pattern)
+    exact = native.se_exact(codes, lens, tables, False, 5000, 6, pattern)
+    ok = ~fb & (lens >= pattern.min_read_len)
+    assert ok.sum() > len(lens) // 2  # most reads resolve on the device
+    for got, want in zip((pos, times, minus, mm), exact):
+        np.testing.assert_array_equal(np.asarray(got)[ok], want[ok])
+
+
+def test_se_device_equals_se_exact(my_index, se_fastq):
+    _se_device_vs_se_exact(my_index, se_fastq)
+
+
+@pytest.mark.gpu
+def test_se_device_equals_se_exact_on_gpu(gpu_device, my_index, se_fastq):
+    import jax
+
+    assert jax.devices()[0] == gpu_device
+    _se_device_vs_se_exact(my_index, se_fastq)
+
+
+def test_pe_flat_spill_byte_identical(tmp_path, monkeypatch):
+    """A flat stream too small for a chunk's candidates (WALTX_PE_FLAT=1 on
+    a repeat-rich genome) spills: the spilled pairs ride the fallback bit
+    to the exact host path and the output stays byte-identical to the
+    numpy backend."""
+    from walt_tpu.core.backends import get_backend
+    from walt_tpu.core.jax_backend import JaxBackend
+    from walt_tpu.core.paired_end import process_paired_end
+    from walt_tpu.index.build import build_all_tables
+    from walt_tpu.index.io_walt import write_index
+    from walt_tpu.synth import (
+        codes_to_fastq, make_genome_repetitive, sample_pairs,
+        write_genome_fasta,
+    )
+
+    genome = make_genome_repetitive(200_000, n_chroms=2, seed=5)
+    write_genome_fasta(genome, str(tmp_path / "g.fa"))
+    g, tables = build_all_tables([str(tmp_path / "g.fa")], verbose=False)
+    index = str(tmp_path / "g.dbindex")
+    write_index(index, g, tables)
+    c1, l1, c2, l2 = sample_pairs(genome, 256, 80, seed=6)
+    fq = (str(tmp_path / "p1.fq"), str(tmp_path / "p2.fq"))
+    codes_to_fastq(c1, l1, fq[0])
+    codes_to_fastq(c2, l2, fq[1])
+
+    def run(backend, name):
+        out = str(tmp_path / name)
+        open(out, "w").close()
+        open(out + ".mapstats", "w").close()
+        process_paired_end(index, *fq, out, max_mismatches=6,
+                           backend=backend)
+        return out
+
+    ref = run(get_backend("numpy"), "ref.mr")
+    monkeypatch.setenv("WALTX_PE_FLAT", "1")
+    jb = JaxBackend(chunk=256, small_chunk=256)
+    assert jb.pe_flat_factor == 1
+    got = run(jb, "spill.mr")
+    assert jb.fallback_reads > 0
+    for suf in ("", ".mapstats"):
+        assert filecmp.cmp(ref + suf, got + suf, shallow=False), suf

@@ -34,12 +34,14 @@ def test_se_injected_oom_byte_identical(tmp_path, my_index, se_fastq):
             if self.bombs:
                 self.bombs -= 1
                 raise RuntimeError(
-                    "RESOURCE_EXHAUSTED: TPU backend error (injected)"
+                    "RESOURCE_EXHAUSTED: device error (injected)"
                 )
             return super().map_single_end(*a, **kw)
 
     oom = str(tmp_path / "oom.mr")
-    _run_se(my_index, se_fastq, oom, OomOnce(chunk=256, small_chunk=64))
+    bomb = OomOnce(chunk=256, small_chunk=64)
+    _run_se(my_index, se_fastq, oom, bomb)
+    assert bomb.device_oom_batches == 2  # the host path is counted
     assert open(oom).read() == open(ok).read()
     assert open(oom + ".mapstats").read() == open(ok + ".mapstats").read()
 
@@ -68,12 +70,14 @@ def test_pe_injected_oom_byte_identical(tmp_path, my_index, pe_fastq):
             if self.bombs:
                 self.bombs -= 1
                 raise RuntimeError(
-                    "RESOURCE_EXHAUSTED: TPU backend error (injected)"
+                    "RESOURCE_EXHAUSTED: device error (injected)"
                 )
             return super().map_mate_slabs_begin(*a, **kw)
 
     oom = str(tmp_path / "oom.mr")
-    run(oom, OomOnce(chunk=256, small_chunk=64))
+    bomb = OomOnce(chunk=256, small_chunk=64)
+    run(oom, bomb)
+    assert bomb.device_oom_batches == 1
     assert open(oom).read() == open(ok).read()
     assert open(oom + ".mapstats").read() == open(ok + ".mapstats").read()
 
@@ -95,11 +99,9 @@ def test_no_uniq_degrade_identical(tmp_path, my_index, se_fastq, monkeypatch):
     backend = JaxBackend(chunk=256, small_chunk=64)
     _run_se(my_index, se_fastq, nu, backend)
     # the degrade actually happened: no table carries a uniq index, and
-    # the rung order follows the measured-throughput policy (round 5):
-    # key16 + concurrent native host replay beats the wider u32 word-0
-    # rung end-to-end, so with the native library present the ladder
-    # takes key16 first; without it the wider word (less Python-replay
-    # fallback) wins
+    # with the native library present the ladder takes key16 first (its
+    # overflow replays concurrently); without it the wider word (less
+    # Python-replay fallback) goes first
     assert all(entry[0].uniq_bits == 0 for entry in backend._tables.values())
     import jax.numpy as jnp
 
@@ -178,7 +180,7 @@ def test_hbm_budget_error_degrades_to_host(tmp_path, my_index, se_fastq,
     ok = str(tmp_path / "ok.mr")
     _run_se(my_index, se_fastq, ok, get_backend("numpy"))
     deg = str(tmp_path / "deg.mr")
-    _run_se(my_index, se_fastq, deg, JaxBackend(chunk=256, small_chunk=64))
+    degraded = JaxBackend(chunk=256, small_chunk=64)
+    _run_se(my_index, se_fastq, deg, degraded)
+    assert degraded.device_oom_batches > 0
     assert open(deg).read() == open(ok).read()
-
-

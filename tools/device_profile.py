@@ -11,7 +11,7 @@ pure device time, no host pipeline effects.
 Usage:
     python tools/device_profile.py [index_prefix] [fastq] [chunk]
 
-Defaults to the large-bench cache (/tmp/waltx_bench_large).  Writes
+Defaults to bench.py's se_large cache (bench_cache/se_large).  Writes
 DEVPROF.json at the repo root and a human table to stderr.
 """
 
@@ -45,7 +45,8 @@ def main() -> int:
     from walt_tpu.index import io_walt
     from walt_tpu.ops import packing, pipeline, se_fold
 
-    cache = "/tmp/waltx_bench_large"
+    cache = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "bench_cache", "se_large")
     index = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         cache, "bench.dbindex")
     fastq = sys.argv[2] if len(sys.argv) > 2 else os.path.join(

@@ -35,7 +35,7 @@ flags = os.environ.get("XLA_FLAGS", "")
 if "host_platform_device_count" not in flags:
     # one XLA intra-op thread per virtual device: otherwise every virtual
     # device fans its ops over ALL cores and N-device runs just time-slice
-    # the same pool (round-1 SCALING.json measured that, not dp scaling)
+    # the same pool (which measures contention, not dp scaling)
     os.environ["XLA_FLAGS"] = (
         flags + " --xla_force_host_platform_device_count=8"
         " --xla_cpu_multi_thread_eigen=false"
@@ -43,9 +43,6 @@ if "host_platform_device_count" not in flags:
     ).strip()
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np  # noqa: E402
 
 

@@ -1,7 +1,6 @@
-"""Tune the PE mate-program shapes on the real chip (verdict round 3 #6).
+"""Tune the PE mate-program shapes on one card.
 
-pe_mid_256M ran at 55.0k pairs/s with 23.3% host-fallback in round 3.  PE
-candidate density is higher than SE's (no 0/1-mismatch early exit; every
+PE candidate density is higher than SE's (no 0/1-mismatch early exit; every
 candidate <= -m feeds the top-k heaps), so the SE-tuned tier-1 shapes spill
 more.  This sweeps (verify_slab, wl_factor, flat_factor) for the fused mate
 program with the tables uploaded ONCE, reporting pairs/s + fallback per

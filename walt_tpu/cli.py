@@ -2,7 +2,7 @@
 
 Flag names, defaults and validation mirror the reference CLIs
 (``src/walt/walt.cpp:130-246`` and ``src/walt/makedb.cpp:93-128``) so
-existing WALT invocations can be replayed verbatim, plus TPU-specific
+existing WALT invocations can be replayed verbatim, plus device-specific
 extensions (backend/pattern/mesh options).
 """
 
@@ -77,7 +77,7 @@ def _validate_index(index: str) -> None:
 
 def build_map_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="waltx", description="map Illumina BS-seq reads (TPU-native WALT)"
+        prog="waltx", description="map Illumina BS-seq reads (JAX-native WALT)"
     )
     a = p.add_argument
     a("-i", "-index", "--index", dest="index", required=True,
@@ -117,12 +117,14 @@ def build_map_parser() -> argparse.ArgumentParser:
     a("-t", "-thread", "--thread", dest="threads", type=int, default=1,
       help="host-side worker threads for the exact fallback/oracle paths "
            "(device parallelism is the mesh; walt.cpp:165-166 analog)")
-    # TPU-native extensions
+    # device extensions
     a("--backend", default="jax", choices=("jax", "numpy"),
-      help="candidate enumeration backend (jax=TPU, numpy=host oracle)")
+      help="candidate enumeration backend (jax=accelerator via JAX, "
+           "numpy=host oracle)")
     a("--tp", dest="tp", type=int, default=1,
       help="table-parallel ways: shard the CSR hash table by bucket-key "
-           "range over tp devices (for indexes larger than one chip's HBM); "
+           "range over tp devices (for indexes larger than one card's "
+           "memory); "
            "remaining devices map reads data-parallel")
     a("--seed-pattern", default="3", choices=("3", "5", "7"),
       help="spaced seed pattern (reference compile-time -D SEEDPATTERN*)")

@@ -6,8 +6,8 @@ returns, per read, the ordered candidate stream consumed by
 
 - ``NumpyBackend``: exact host-side enumeration (walt_tpu.core.refmap); the
   oracle, and the fallback for reads the device slabs cannot hold.
-- ``JaxBackend`` (walt_tpu.core.jax_backend): batched XLA/Pallas pipeline on
-  TPU; falls back to NumpyBackend per read when a fixed shape overflows.
+- ``JaxBackend`` (walt_tpu.core.jax_backend): batched XLA pipeline on the
+  accelerator; falls back to NumpyBackend per read when a fixed shape overflows.
 """
 
 from __future__ import annotations

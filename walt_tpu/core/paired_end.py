@@ -308,7 +308,9 @@ def process_paired_end(index_file: str, reads_file_1: str, reads_file_2: str,
                 if not is_oom_error(e):
                     raise
                 # device HBM exhausted: route the whole batch to the exact
-                # host path (byte-identical output) and keep going
+                # host path (byte-identical output), count it on the
+                # backend, and keep going
+                backend.device_oom_batches += 1
                 print(f"[waltx] device OOM, host-mapping batch of "
                       f"{len(b1)} pairs: {e}", file=sys.stderr)
                 n_ = len(b1)
@@ -480,7 +482,10 @@ def process_paired_end(index_file: str, reads_file_1: str, reads_file_2: str,
                         if not is_oom_error(e):
                             raise
                         # device HBM exhausted: enumerate this strand on
-                        # the exact host path (byte-identical) and go on
+                        # the exact host path (byte-identical), count it
+                        # on the backend, and go on
+                        if hasattr(backend, "device_oom_batches"):
+                            backend.device_oom_batches += 1
                         print(f"[waltx] device OOM, host-enumerating "
                               f"{len(batch)} reads: {e}", file=sys.stderr)
                         from walt_tpu.core import refmap

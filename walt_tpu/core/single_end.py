@@ -116,7 +116,9 @@ def process_single_end(index_file: str, reads_file: str, output_file: str,
                     if not is_oom_error(e):
                         raise
                     # device HBM exhausted: remap the whole batch on the
-                    # exact host path (byte-identical output) and keep going
+                    # exact host path (byte-identical output), count it on
+                    # the backend, and keep going
+                    backend.device_oom_batches += 1
                     print(f"[waltx] device OOM, host-mapping batch of "
                           f"{len(lens)} reads: {e}", file=sys.stderr)
                     n_ = codes.shape[0]

@@ -1,8 +1,8 @@
 """File-like append writer that bypasses slow page-cache writeback.
 
-On the virtualized TPU host class, buffered writeback degrades to ~4 MB/s
-as dirty memory grows, while O_DIRECT sustains ~100 MB/s (see
-native/fastio.cpp:direct_write).  DirectFile batches text writes in memory
+On some virtualized hosts buffered writeback degrades sharply as dirty
+memory grows, while O_DIRECT keeps its rate (see
+native/fastio.cpp:direct_write; ROADMAP C5 queues a measurement).  DirectFile batches text writes in memory
 and flushes >=4 MB blocks through the native O_DIRECT writer (falling back
 to plain os.write when the library is unavailable).  It implements the
 file-object surface the drivers and the resume checkpointing use: write,

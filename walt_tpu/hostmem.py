@@ -2,12 +2,10 @@
 
 glibc serves allocations above the mmap threshold (128 KB default) with a
 fresh mmap and unmaps them on free, so every large NumPy temporary is paid
-for in page faults.  On virtualized TPU hosts a demand fault on private
-anonymous memory can cost ~40 us of VMM round trip (snapshot-restored VMs
-serve faults through userfaultfd), i.e. first-touch bandwidth of ~8 MB/s --
-measured here: np.ones(100MB) 20-26 s, np.diff over a 16.7M-entry array
-30-50 s.  Batch population (MADV_POPULATE_WRITE) runs at ~1 GB/s on the
-same host, and already-faulted heap pages are full memory speed.
+for in page faults.  On snapshot-restored VMs that serve faults through
+userfaultfd, a demand fault on private anonymous memory costs a VMM round
+trip, while batch population (MADV_POPULATE_WRITE) runs near memory speed
+and already-faulted heap pages are full memory speed.
 
 So the strategy has two halves, both process-global and idempotent:
 

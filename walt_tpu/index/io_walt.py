@@ -13,7 +13,7 @@ Format (see SURVEY.md section 2.4; ``src/walt/reference.cpp:302-417``):
     u32 counter_size (=4^12), u32 index_size,
     u32 counter[counter_size+1], u32 index[index_size].
 
-All integers little-endian u32.  This module lets the TPU mapper consume
+All integers little-endian u32.  This module lets the mapper consume
 indexes produced by the reference ``makedb`` (used heavily by the golden
 tests) and produce indexes the reference ``walt`` can consume.
 """

@@ -1,9 +1,10 @@
 """Native host finalization library: lazy g++ build + ctypes bindings.
 
 The shared object is compiled on first use into this package directory and
-rebuilt whenever the source is newer.  Everything degrades gracefully: if no
-compiler is available the callers fall back to the (identical, slower)
-Python implementations in walt_tpu.host.
+rebuilt whenever the source is newer.  If it cannot be built or loaded,
+``get_lib()`` returns None, the reason is printed once to stderr and kept
+in :data:`build_error`, and the callers fall back to the (identical,
+much slower) Python implementations in walt_tpu.host.
 """
 
 from __future__ import annotations
@@ -19,38 +20,45 @@ _SO = os.path.join(_DIR, "libwaltx_finalize.so")
 
 _lib = None
 _tried = False
+#: why the library is unavailable (None while it loads or is untried)
+build_error = None
 
 
 def _build() -> bool:
-    try:
-        src_m = max(os.path.getmtime(s) for s in _SRCS)
-    except OSError:
-        return False
+    global build_error
+    src_m = max(os.path.getmtime(s) for s in _SRCS)
     if os.path.exists(_SO) and os.path.getmtime(_SO) >= src_m:
         return True
     try:
         subprocess.run(
             ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-o",
              _SO + ".tmp"] + _SRCS,
-            check=True, capture_output=True, timeout=120,
+            check=True, capture_output=True, timeout=120, text=True,
         )
-        os.replace(_SO + ".tmp", _SO)
-        return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", None) or ""
+        build_error = f"g++ build failed: {e}\n{detail[-2000:]}"
         return False
+    os.replace(_SO + ".tmp", _SO)
+    return True
 
 
 def get_lib():
     """The loaded library, or None when unavailable."""
-    global _lib, _tried
+    global _lib, _tried, build_error
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not _build():
-        return None
-    try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+    if _build():
+        try:
+            lib = ctypes.CDLL(_SO)
+        except OSError as e:
+            build_error = f"cannot load {_SO}: {e}"
+    if build_error is not None:
+        import sys
+
+        print(f"[waltx] native library unavailable, using the Python host "
+              f"path: {build_error}", file=sys.stderr)
         return None
     u8p = ctypes.POINTER(ctypes.c_uint8)
     i8p = ctypes.POINTER(ctypes.c_int8)

@@ -2,7 +2,7 @@
 //
 // The reference's read loading and output writing are C++ (component #10 of
 // SURVEY.md: smithlab_os.cpp:203-364 FASTQ reading; mapping.cpp:347-419
-// output) and the TPU framework keeps that boundary native: the Python host
+// output) and this framework keeps that boundary native: the Python host
 // pipeline hands whole buffers to these entry points instead of running
 // per-read interpreter loops.  Semantics are a from-spec port of
 // walt_tpu/host/fastq.py (_load_batch_fast) and walt_tpu/host/emit.py

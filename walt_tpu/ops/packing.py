@@ -93,8 +93,8 @@ def window_words(pseq, gpos, n_words: int):
     """
     word0 = (gpos >> 4).astype(jnp.int32)
     sh = ((gpos & 15) << 1).astype(jnp.uint32)  # 0..30
-    # jnp.take with explicit per-word indices: XLA lowers this ~15x faster
-    # on TPU than a gather with slice_sizes (measured on v5e)
+    # jnp.take with explicit per-word indices: one (…, n_words+1) index
+    # gather rather than a gather with slice_sizes
     widx = word0[..., None] + jnp.arange(n_words + 1, dtype=jnp.int32)
     slices = jnp.take(pseq, widx, mode="clip")
     lo = slices[..., :n_words]
@@ -109,10 +109,10 @@ def window_words(pseq, gpos, n_words: int):
 def window_cols(pseq, gpos, n_words: int):
     """Like :func:`window_words` but as a LIST of 1-D aligned word columns.
 
-    For very wide rows (tens of millions) XLA picks a catastrophically
-    padded layout for the (M, n_words+1) 2-D gather (18x expansion observed
-    at M=32M on v5e -- a 16 GB temp for an 896 MB gather).  n_words+1
-    separate 1-D gathers move the same HBM bytes with plain layouts.
+    For very wide rows (tens of millions) XLA can pick a padded layout for
+    the (M, n_words+1) 2-D gather, a temporary many times the gather's own
+    bytes.  n_words+1 separate 1-D gathers move the same bytes with plain
+    layouts.
     """
     word0 = (gpos >> 4).astype(jnp.int32)
     sh = ((gpos & 15) << 1).astype(jnp.uint32)
@@ -131,3 +131,18 @@ def count_mismatch_words(a, b, lane_mask):
     d = a ^ b
     m = (d | (d >> 1)) & lane_mask
     return jax.lax.population_count(m)
+
+
+def verify_words(pseq, gpos, conv, lane, n_words: int):
+    """The verify op: per row, the aligned genome window at ``gpos`` and
+    the count of its bases that differ from the converted read ``conv``
+    under the read-length ``lane`` mask.
+
+    Returns (mm (…,) int32, win (…, n_words) uint32).  XLA fuses the
+    window gather, XOR, fold and popcount into one loop; a hand-written
+    Pallas kernel measured no faster on the H100 (PERF.md).
+    """
+    win = window_words(pseq, gpos, n_words)
+    mm = jnp.sum(count_mismatch_words(win, conv, lane), axis=-1,
+                 dtype=jnp.int32)
+    return mm, win

@@ -1,8 +1,8 @@
 """Multi-host execution glue: process init, input sharding, stats merge.
 
 The reference is strictly single-process (SURVEY.md section 2.3: no
-MPI/sockets anywhere).  The TPU-native equivalent runs one waltx process
-per host of a pod slice: `jax.distributed` provides the coordination
+MPI/sockets anywhere).  The multi-host equivalent runs one waltx process
+per host: `jax.distributed` provides the coordination
 plane, read FILES are data-parallel round-robin across processes (the
 mapper's per-file loop, walt.cpp:254-270, is embarrassingly parallel and
 file-granular sharding keeps every output byte-identical to a single-host
@@ -25,8 +25,7 @@ import re
 def initialize(**kwargs) -> tuple:
     """jax.distributed.initialize passthrough (idempotent).
 
-    On TPU pods all arguments auto-detect from the environment; elsewhere
-    pass coordinator_address/num_processes/process_id or set
+    Pass coordinator_address/num_processes/process_id or set
     WALTX_COORDINATOR / WALTX_NUM_HOSTS / WALTX_HOST_ID.  Returns
     (process_index, process_count).
     """

@@ -330,8 +330,7 @@ def _merge_tp(cs, cp, cm, fb, cand_slab: int, n_seeds: int = _MAX_SHIFT):
 def merge_gathered(cs_g, cp_g, cm_g, fb_any, cand_slab: int,
                    n_seeds: int = _MAX_SHIFT):
     """Post-all_gather merge math of :func:`_merge_tp` (factored so the
-    exact production trace can be compiled standalone -- e.g. timed on one
-    real chip, tools/tp_merge_chip.py)."""
+    exact production trace can be compiled standalone)."""
     Bl = cs_g.shape[1]
     C = cand_slab
     valid = cs_g >= 0  # (T, Bl, C)
@@ -524,10 +523,8 @@ def map_single_end_sharded(preads, lens, b, max_mm, tables, *, mesh: Mesh,
             # lives wholly on one shard, so the BestMatch fold only needs
             # each shard's per-segment (seg_min, transitions, first/last
             # position, has) -- five (B_l, S) arrays and a select-combine.
-            # The former full-slab merge (_merge_tp) scatters (T, B_l, C)
-            # slabs: measured 156 ms/table per 65k chunk on the real v5e
-            # (tools/tp_merge_chip.py), i.e. more than the entire
-            # single-chip SE program.
+            # The full-slab merge (_merge_tp) would scatter (T, B_l, C)
+            # slabs instead.
             summ = se_fold.segment_summaries(cs, cp, cm, pattern)
             gathered = {
                 k: jax.lax.all_gather(v, "tp") for k, v in summ.items()
@@ -579,10 +576,8 @@ def map_mate_sharded(preads, lens, b, max_mm, tables, *, mesh: Mesh,
     (read, seed) bucket lives wholly on one shard, so the union of the
     shard streams IS the candidate set -- and the all_gather moves
     ~16-40 B/read of compacted stream per shard instead of (T, B_l, C)
-    padded slabs.  The former slab merge (``_merge_tp``) was chip-measured
-    at 156 ms/table per 65k chunk (SCALING.json round 4,
-    ``tp_merge_chip_ms``) -- more than the whole single-chip SE program;
-    the stream gather replaces its scatter entirely and the examination-
+    padded slabs.  The stream gather replaces the slab merge's
+    (``_merge_tp``) scatter entirely and the examination-
     order interleave (seed asc across shards) moves to the host decode
     (jax_backend._decode_mate), where it is a numpy lexsort over the ~2-4
     real candidates/read.
